@@ -1,6 +1,6 @@
 """Compressed factorization flow — the reference's ``lu_factorization`` /
 ``cholesky_factorization`` surface (``hmatrix/linalg/factorization.hpp:82-290``)
-on the TPU-native engines:
+on the batched engines:
 
 - flat one-level BLR (single lax.scan over a host-planned static schedule),
 - two-level panels, and

@@ -1,6 +1,6 @@
-"""htool_tpu — a TPU-native hierarchical-matrix + DDM-solver framework.
+"""htool_tpu — a hierarchical-matrix + DDM-solver framework in JAX.
 
-Brand-new JAX/XLA/Pallas framework with the capabilities of Htool-DDM
+JAX/XLA framework with the capabilities of Htool-DDM
 (https://github.com/htool-ddm/htool): geometric cluster trees, H-matrix
 compression (batched partial ACA / SVD), H-arithmetic, a row-partitioned
 distributed operator over a ``jax.sharding.Mesh``, and CG/GMRES Krylov
@@ -8,19 +8,19 @@ solvers with one- and two-level (GenEO) domain-decomposition
 preconditioners.
 
 Design: trees and block plans are built on host in NumPy; the device sees
-only flat, static, padded bucket arrays driven by batched einsum/Pallas
-kernels.  See SURVEY.md §7 for the blueprint.
+only flat, static, padded bucket arrays driven by batched einsums.  See
+SURVEY.md §7 for the blueprint.
 """
 
 import os as _os
 
 import jax as _jax
 
-# TPU MXUs run f32 dot_general at bf16 input precision by default (~3
-# decimal digits) — that breaks the library's accuracy contract (compression
-# error < epsilon, reference test_hmatrix_build.hpp:191; measured: LU
-# backward error 1e-7 on CPU vs 1.7e-3 on chip).  Full f32 accumulation is
-# the contract; opt out with HTOOL_TPU_DEFAULT_PRECISION=default.
+# A float32 matmul on Hopper GPUs may run in TF32 (~3 decimal digits) unless
+# a precision is requested, which breaks the library's accuracy contract
+# (compression error < epsilon, reference test_hmatrix_build.hpp:191).
+# Full f32 products are the contract; chip_smoke.py's precision phase checks
+# it on the card.  Opt out with HTOOL_TPU_DEFAULT_PRECISION=default.
 _prec = _os.environ.get("HTOOL_TPU_DEFAULT_PRECISION", "highest")
 if _prec != "default":
     _jax.config.update("jax_default_matmul_precision", _prec)
@@ -62,7 +62,6 @@ from .hmatrix.conversion import (
     to_blr2,
 )
 from .hmatrix.output import load_hmatrix, save_hmatrix
-from .utils.cxfer import to_device, to_host
 
 __version__ = "0.1.0"
 
@@ -111,6 +110,4 @@ __all__ = [
     "common_grid_blr",
     "save_hmatrix",
     "load_hmatrix",
-    "to_device",
-    "to_host",
 ]

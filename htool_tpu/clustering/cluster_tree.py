@@ -1,6 +1,6 @@
 """Geometric cluster trees — host-side planner.
 
-TPU-native design: the cluster tree is built once on the host in NumPy and is
+Design: the cluster tree is built once on the host in NumPy and is
 consumed as flat integer arrays by the block-tree planner.  The device never
 sees tree pointers — only the permutation (as gather indices) and block
 offset/size tables derived from this structure.

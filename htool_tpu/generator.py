@@ -3,7 +3,7 @@
 Equivalent of the reference's ``VirtualGenerator`` /
 ``VirtualInternalGenerator`` (``hmatrix/interfaces/virtual_generator.hpp``):
 the user supplies a rule for arbitrary sub-blocks of the (never materialized)
-dense matrix.  TPU-native difference: instead of a ``copy_submatrix`` filling
+dense matrix.  The difference: instead of a ``copy_submatrix`` filling
 a host pointer, a generator exposes a **jittable, batched gather**:
 ``block(rows, cols) -> entries`` where ``rows``/``cols`` are integer index
 arrays in *user numbering* with arbitrary leading batch dimensions.  This is
@@ -63,9 +63,7 @@ class KernelGenerator(Generator):
         self.source_points = jnp.asarray(source_points)
         self.shape = (self.target_points.shape[0], self.source_points.shape[0])
         if dtype is None:
-            # eval_shape: dtype inference with zero device work (an eager
-            # probe would put the kernel's complex constants on the device,
-            # which some TPU runtimes cannot transfer — see utils/cxfer.py)
+            # eval_shape: dtype inference with zero device work
             probe = jax.eval_shape(
                 kernel,
                 jax.ShapeDtypeStruct(
@@ -133,9 +131,7 @@ class MatrixGenerator(Generator):
     (``testing/generator_test.hpp:207-221``)."""
 
     def __init__(self, matrix):
-        from .utils.cxfer import to_device
-
-        self.matrix = to_device(matrix)
+        self.matrix = jnp.asarray(matrix)
         self.shape = tuple(self.matrix.shape)
         self.dtype = self.matrix.dtype
 
@@ -151,7 +147,7 @@ class MatrixGenerator(Generator):
 # Generators are passed INTO jitted kernels (assembly, ACA) as pytree
 # arguments, never closed over: a closed-over coordinate/matrix array gets
 # baked into the HLO as a constant, which blows XLA compile time up by
-# orders of magnitude (observed 400s -> 1s on the TPU remote-compile path).
+# orders of magnitude at realistic point counts.
 # ----------------------------------------------------------------------
 
 

@@ -1,6 +1,6 @@
 """Batched partial ACA on device.
 
-TPU-native re-design of the reference's sequential partial-pivot ACA
+Batched re-design of the reference's sequential partial-pivot ACA
 (``hmatrix/lrmat/partialACA.hpp:42-184``): one jitted ``lax.while_loop`` runs
 masked pivoting steps **simultaneously for a whole bucket of admissible
 blocks** (same padded shape, early exit once every block converged), with the

@@ -1,6 +1,6 @@
 """Block-tree planner — host-side, produces a flat leaf list.
 
-TPU-native design: the reference builds a pointer tree of HMatrix nodes
+Design: the reference builds a pointer tree of HMatrix nodes
 (``hmatrix/tree_builder/tree_builder.hpp:417-531``); here the same recursion
 runs once on host over the cluster-tree arrays and emits only the **leaves**
 (dense blocks and admissible/low-rank candidates) as flat offset/size tables.

@@ -8,7 +8,7 @@ Two capabilities of the reference that act on an ALREADY-BUILT H-matrix:
 - ``to_blr``: re-tile the adaptive flat H-matrix onto the uniform BLR grid
   so the factorization / compressed-product engine (``blr_lu``,
   ``blr_cholesky``, ``blr_matmul``) can consume the operator that was
-  assembled — the TPU-native counterpart of the reference calling
+  assembled — the batched counterpart of the reference calling
   ``lu_factorization(hmatrix)`` / ``internal_add_hmatrix_hmatrix_product``
   directly on the built tree (``hmatrix/linalg/factorization.hpp:19-79``,
   ``add_hmatrix_hmatrix_product.hpp:24-312``).  No generator re-evaluation:
@@ -35,8 +35,6 @@ from .blr import DENSE, LR, ZERO, BLRMatrix, _grid_cells, blr_cholesky, blr_lu, 
 from .blr2 import TwoLevelBLR, blr2_cholesky, blr2_lu, blr2_solve
 from .compressors import batched_recompress
 from .hmatrix import HMatrix, LowRankBucket
-from ..utils.cxfer import to_device, to_host
-
 __all__ = [
     "recompress_hmatrix",
     "retile_blr",
@@ -197,7 +195,7 @@ def to_blr(
                     add(ci, cj, ("D", get_dense(sl_r, sl_c), at))
 
     for bk in h.dense_buckets:
-        data = to_host(bk.data)
+        data = np.asarray(bk.data)
         t_off = np.asarray(bk.t_off)
         s_off = np.asarray(bk.s_off)
         for q in range(bk.n_blocks):
@@ -215,8 +213,8 @@ def to_blr(
                 )
 
     for bk in h.lr_buckets:
-        U = to_host(bk.U)
-        V = to_host(bk.V)
+        U = np.asarray(bk.U)
+        V = np.asarray(bk.V)
         t_off = np.asarray(bk.t_off)
         s_off = np.asarray(bk.s_off)
         rks = np.asarray(bk.ranks)
@@ -314,13 +312,13 @@ def _assemble_blr_cells(
             D_list.append(Dc)
 
     nd, nl = len(D_list), len(U_list)
-    D = to_device(
+    D = jnp.asarray(
         np.concatenate([np.stack(D_list) if nd else np.zeros((0, b, b), dtype), np.zeros((1, b, b), dtype)])
     )
-    U = to_device(
+    U = jnp.asarray(
         np.concatenate([np.stack(U_list) if nl else np.zeros((0, b, R_buf), dtype), np.zeros((1, b, R_buf), dtype)])
     )
-    V = to_device(
+    V = jnp.asarray(
         np.concatenate([np.stack(V_list) if nl else np.zeros((0, R_buf, b), dtype), np.zeros((1, R_buf, b), dtype)])
     )
     ranks = jnp.asarray(np.array(rank_list + [0], np.int32))
@@ -400,9 +398,9 @@ def retile_blr(
                 else:
                     add(ci, cj, ("D", get_dense(sl_r, sl_c), at))
 
-    Dh = to_host(X.D)
-    Uh = to_host(X.U)
-    Vh = to_host(X.V)
+    Dh = np.asarray(X.D)
+    Uh = np.asarray(X.U)
+    Vh = np.asarray(X.V)
     rk = np.asarray(X.ranks)
     for i in range(X.nL):
         oi, si = int(X.cell_off[i]), int(X.cell_size[i])
@@ -472,9 +470,9 @@ def permute_blr(
         # most half the dense cell footprint
         R_half = max(8, int(-(-(b // 4) // 8) * 8))
 
-    Dh = to_host(X.D)
-    Uh = to_host(X.U)
-    Vh = to_host(X.V)
+    Dh = np.asarray(X.D)
+    Uh = np.asarray(X.U)
+    Vh = np.asarray(X.V)
     rk = np.asarray(X.ranks)
     src_off = np.asarray(X.cell_off, np.int64)
     src_end = src_off + np.asarray(X.cell_size, np.int64)
@@ -637,7 +635,7 @@ def to_blr2(
                     add(ci, cj, ("D", get_dense(sl_r, sl_c), at))
 
     for bk in h.dense_buckets:
-        data = to_host(bk.data)
+        data = np.asarray(bk.data)
         t_off = np.asarray(bk.t_off)
         s_off = np.asarray(bk.s_off)
         for q in range(bk.n_blocks):
@@ -651,8 +649,8 @@ def to_blr2(
                               lambda r, c, mb=mb: mb[r, c], None, False)
 
     for bk in h.lr_buckets:
-        U = to_host(bk.U)
-        V = to_host(bk.V)
+        U = np.asarray(bk.U)
+        V = np.asarray(bk.V)
         t_off = np.asarray(bk.t_off)
         s_off = np.asarray(bk.s_off)
         rks = np.asarray(bk.ranks)
@@ -722,11 +720,11 @@ def to_blr2(
                     pos += r
                 rk[t] = pos
             U2, V2, nr = batched_recompress(
-                to_device(Us), to_device(Vs), jnp.asarray(rk), epsilon
+                jnp.asarray(Us), jnp.asarray(Vs), jnp.asarray(rk), epsilon
             )
             nr = np.asarray(nr)
-            U2 = to_host(U2)
-            V2 = to_host(V2)
+            U2 = np.asarray(U2)
+            V2 = np.asarray(V2)
             for t, key in enumerate(sel):
                 stacked[key] = (U2[t], V2[t], int(nr[t]))
 
@@ -755,10 +753,10 @@ def to_blr2(
         panel_size=szs,
         P=P,
         diag_mode="dense",
-        pU=to_device(pU),
-        pV=to_device(pV),
+        pU=jnp.asarray(pU),
+        pV=jnp.asarray(pV),
         pRank=jnp.asarray(pRank),
-        Dd=to_device(Dd),
+        Dd=jnp.asarray(Dd),
         R=R,
         epsilon=float(epsilon),
         permutation=tree.permutation,
@@ -857,8 +855,8 @@ def blr_to_hmatrix(B: BLRMatrix, tree: Optional[ClusterTree] = None) -> HMatrix:
     """Re-export a (non-factorized) uniform-grid BLR matrix as a bucketed
     :class:`HMatrix`, closing the product loop: the result of
     :func:`hmatrix_hmatrix_product` (a ``BLRMatrix``) re-enters the
-    tiled/Pallas matvec fast path and the npz persistence surface — the
-    TPU counterpart of the reference writing an H×H product back into an
+    bucketed matvec and the npz persistence surface — the counterpart of
+    the reference writing an H×H product back into an
     ``HMatrix`` (``add_hmatrix_hmatrix_product.hpp:210``).
 
     One dense bucket (all dense cells) and one low-rank bucket (all LR
@@ -869,8 +867,6 @@ def blr_to_hmatrix(B: BLRMatrix, tree: Optional[ClusterTree] = None) -> HMatrix:
         raise ValueError("blr_to_hmatrix expects an unfactorized matrix "
                          "(factors are not an operator)")
     from .hmatrix import DenseBucket
-    from ..utils.cxfer import czeros
-
     n, b, nL = B.n, B.b, B.nL
     perm = B.permutation if B.permutation is not None else (
         tree.permutation if tree is not None else np.arange(n)

@@ -1,6 +1,6 @@
 """Flat bucketed H-matrix container (device-resident, pytree).
 
-TPU-native replacement for the reference's pointer block tree
+Flat replacement for the reference's pointer block tree
 (``hmatrix/hmatrix.hpp:28-245``): all leaves live in a handful of stacked
 3-D arrays ("buckets") grouped by padded block shape — dense buckets
 ``[nb, bm, bn]`` and low-rank buckets ``U [nb, bm, r] / V [nb, r, bn]``
@@ -35,9 +35,6 @@ class DenseBucket:
     t_sizes: np.ndarray = None
     s_sizes: np.ndarray = None
     mirror: bool = False  # symmetric mirrored contribution in products
-    # optional tiled-matvec plans (ops/tiled_matvec.py), by output side
-    plan_t: Any = None
-    plan_s: Any = None
 
     @property
     def n_blocks(self) -> int:
@@ -60,8 +57,6 @@ class LowRankBucket:
     s_sizes: np.ndarray = None
     ranks: np.ndarray = None  # true ranks per block (host)
     mirror: bool = False
-    plan_t: Any = None
-    plan_s: Any = None
 
     @property
     def n_blocks(self) -> int:
@@ -78,26 +73,22 @@ class LowRankBucket:
 
 def _flatten_dense(b: DenseBucket):
     # host-side size arrays ride along as leaves (unused inside jitted code)
-    return (b.data, b.t_off, b.s_off, b.t_sizes, b.s_sizes, b.plan_t,
-            b.plan_s), (b.mirror,)
+    return (b.data, b.t_off, b.s_off, b.t_sizes, b.s_sizes), (b.mirror,)
 
 
 def _unflatten_dense(aux, leaves):
-    data, t_off, s_off, t_sizes, s_sizes, plan_t, plan_s = leaves
+    data, t_off, s_off, t_sizes, s_sizes = leaves
     (mirror,) = aux
-    return DenseBucket(data, t_off, s_off, t_sizes, s_sizes, mirror,
-                       plan_t, plan_s)
+    return DenseBucket(data, t_off, s_off, t_sizes, s_sizes, mirror)
 
 
 def _flatten_lr(b: LowRankBucket):
-    return (b.U, b.V, b.t_off, b.s_off, b.t_sizes, b.s_sizes, b.ranks,
-            b.plan_t, b.plan_s), (b.mirror,)
+    return (b.U, b.V, b.t_off, b.s_off, b.t_sizes, b.s_sizes, b.ranks), (b.mirror,)
 
 
 def _unflatten_lr(aux, leaves):
-    U, V, t_off, s_off, t_sizes, s_sizes, ranks, plan_t, plan_s = leaves
-    return LowRankBucket(U, V, t_off, s_off, t_sizes, s_sizes, ranks,
-                         aux[0], plan_t, plan_s)
+    U, V, t_off, s_off, t_sizes, s_sizes, ranks = leaves
+    return LowRankBucket(U, V, t_off, s_off, t_sizes, s_sizes, ranks, aux[0])
 
 
 jax.tree_util.register_pytree_node(DenseBucket, _flatten_dense, _unflatten_dense)
@@ -133,6 +124,15 @@ class HMatrix:
         for b in self.lr_buckets:
             return b.U.dtype
         return jnp.float32
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the stored (padded) bucket entries, from static shapes."""
+        item = jnp.dtype(self.dtype).itemsize
+        n = sum(int(np.prod(b.data.shape)) for b in self.dense_buckets)
+        n += sum(int(np.prod(b.U.shape)) + int(np.prod(b.V.shape))
+                 for b in self.lr_buckets)
+        return n * item
 
     # ------------------------------------------------------------------
     def __matmul__(self, x):

@@ -1,11 +1,14 @@
 """H-matrix products (matvec / multi-RHS matmat) and dense export.
 
-TPU-native re-design of the reference leaf-loop products
+Batched re-design of the reference leaf-loop products
 (``hmatrix/linalg/add_hmatrix_vector_product.hpp:17-206`` and the row-major
-multi-RHS variants): the per-leaf gemv loop becomes, per bucket, ONE batched
-einsum (MXU) between stacked blocks and gathered input slices, followed by a
-scatter-add into the output.  Padded rows/cols are exact zeros so no masking
-is needed.  Symmetric/hermitian mirrored contributions
+multi-RHS variants): the per-leaf gemv loop becomes, per bucket, a gather of
+the input slices, ONE batched einsum against the stacked blocks, and a
+scatter-add into the output, which XLA compiles as it stands.  For large
+float32 operators with several right-hand sides on a GPU the same bucket
+terms run through the output-tiled Triton kernel of :mod:`.tiled_product`
+instead (:func:`product_route`).  Padded rows/cols are exact zeros so no
+masking is needed.  Symmetric/hermitian mirrored contributions
 (``add_hmatrix_vector_product.hpp:56-104``) are separate bucket terms with
 the transposed/conjugated operand.
 
@@ -22,83 +25,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.bucket_matvec import (
-    dense_bucket_matvec,
-    lr_bucket_matvec,
-    pallas_matvec_ok,
-)
-from ..ops.tiled_matvec import (
-    ComplexPlans,
-    apply_complex_plans,
-    build_tile_plan,
-    complex_plans_ok,
-    tiled_bucket_matvec,
-    tiled_matvec_ok,
-)
+from . import tiled_product as tp
 from .hmatrix import DenseBucket, HMatrix, LowRankBucket
 from ..utils.precision import precise_jit
 
 __all__ = [
+    "product_route",
     "matvec",
     "matvec_user",
     "matmat",
     "matmat_user",
-    "prepare_tiled_matvec",
     "to_dense",
     "copy_diagonal",
     "copy_diagonal_user",
 ]
-
-
-def _pad_in_of(h: HMatrix) -> int:
-    widths = [b.block_shape for b in h.dense_buckets] + [
-        b.block_shape for b in h.lr_buckets
-    ]
-    return max(
-        max([w[0] for w in widths], default=1),
-        max([w[1] for w in widths], default=1),
-    )
-
-
-def prepare_tiled_matvec(h: HMatrix, tile_rows: int = 4096) -> HMatrix:
-    """Attach tiled-product plans (:mod:`..ops.tiled_matvec`) to the buckets
-    of a GLOBAL H-matrix, in place.  Products then run the tiled fused
-    kernel at scales where the resident Pallas kernels no longer fit VMEM
-    (n beyond ~12k rows), keeping the fused no-gather/no-scatter hot path up
-    to BASELINE scales.  Wide low-rank buckets whose one-shot plan would
-    bust VMEM get the split two-stage plan (t = V·x then y += U·t).  Call
-    OUTSIDE jit, once, after assembly."""
-    from ..ops.tiled_matvec import build_tile_plan_complex, build_tile_plan_lr_split
-
-    if not isinstance(h.t_root_off, int) or h.t_root_off != 0:
-        raise ValueError("tiled plans require a global (non-restricted) H-matrix")
-    pad_in = _pad_in_of(h)
-    m, n = h.shape
-    ref_dtype = jnp.float32  # lanes(k) is constant for k <= 128
-
-    if jnp.issubdtype(h.dtype, jnp.complexfloating):
-        # complex fast path: real/imag plane plans (Mosaic has no complex or
-        # f64 support, so only complex64 gets plans; complex128 stays on XLA)
-        if h.dtype != jnp.complex64:
-            return h
-        for bucket in h.dense_buckets + h.lr_buckets:
-            bucket.plan_t = build_tile_plan_complex(bucket, "t", m + pad_in, tile_rows)
-            bucket.plan_s = build_tile_plan_complex(bucket, "s", n + pad_in, tile_rows)
-        return h
-
-    def make(bucket, side, out_len, is_lr):
-        plan = build_tile_plan(bucket, side, out_len, tile_rows)
-        if tiled_matvec_ok(ref_dtype, 1, plan) or not is_lr:
-            return plan
-        return build_tile_plan_lr_split(bucket, side, out_len, tile_rows)
-
-    for bucket in h.dense_buckets:
-        bucket.plan_t = make(bucket, "t", m + pad_in, False)
-        bucket.plan_s = make(bucket, "s", n + pad_in, False)
-    for bucket in h.lr_buckets:
-        bucket.plan_t = make(bucket, "t", m + pad_in, True)
-        bucket.plan_s = make(bucket, "s", n + pad_in, True)
-    return h
 
 
 def _gather(x_pad, off, width):
@@ -180,7 +120,32 @@ def _bucket_terms(bucket, op: str, symmetry: str):
     return terms
 
 
-@partial(precise_jit, static_argnames=("op",))
+# When the output-tiled kernel beats XLA (one H100, float32, see PERF.md):
+# its fixed cost — two launches and an argsort per bucket term, ≈0.3 ms —
+# pays off only on large operators.  It was 27% faster at n=100k (1.87 GB
+# stored, 2 to 8 right-hand sides) and 40% slower at n=10k (0.11 GB); with
+# one right-hand side XLA already runs at the copy bound.  512 MiB is the
+# crossover those two sizes give; above 64 columns the kernel's register
+# tile is unmeasured.
+KERNEL_MIN_BYTES = 512 * 2**20
+KERNEL_RHS = (2, 64)
+
+
+def product_route(dtype, nrhs: int, nbytes: int,
+                  backend: str | None = None) -> str:
+    """How :func:`matvec` runs the buckets: ``"triton"`` (the output-tiled
+    kernel of :mod:`.tiled_product`) for float32 on a GPU with 2 to 64
+    right-hand sides and at least ``KERNEL_MIN_BYTES`` of stored entries,
+    ``"xla"`` (gather → batched einsum → scatter-add) otherwise.  No
+    fallback: a kernel failure is an error."""
+    backend = jax.default_backend() if backend is None else backend
+    lo, hi = KERNEL_RHS
+    if (backend == "gpu" and jnp.dtype(dtype) == jnp.float32
+            and lo <= nrhs <= hi and nbytes >= KERNEL_MIN_BYTES):
+        return "triton"
+    return "xla"
+
+
 def matvec(h: HMatrix, x, op: str = "N"):
     """Product in cluster numbering: ``op(H) @ x``.
 
@@ -189,6 +154,15 @@ def matvec(h: HMatrix, x, op: str = "N"):
     the local rows; 'T'/'C' takes the local rows slice as input and returns a
     GLOBAL-size output (the caller reduces across partitions).
     """
+    nrhs = 1 if x.ndim == 1 else x.shape[1]
+    route = product_route(jnp.result_type(h.dtype, x.dtype), nrhs, h.nbytes)
+    return _matvec(h, x, op=op, route=route)
+
+
+@partial(precise_jit, static_argnames=("op", "route"))
+def _matvec(h: HMatrix, x, op: str, route: str):
+    """``route``: "xla", "triton", or "interpret" (the Triton kernel run by
+    the Pallas interpreter, for tests on the CPU)."""
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -197,6 +171,7 @@ def matvec(h: HMatrix, x, op: str = "N"):
     out_is_t = op == "N"
     out_len = m_loc if out_is_t else n_glob
     dtype = jnp.result_type(h.dtype, x.dtype)
+    k = x.shape[1]
 
     # pad widths: max block extent so gathers/scatters stay in range
     widths = [b.block_shape for b in h.dense_buckets] + [
@@ -206,12 +181,17 @@ def matvec(h: HMatrix, x, op: str = "N"):
     max_bn = max([w[1] for w in widths], default=1)
     pad_in = max(max_bm, max_bn)
 
-    # +16: the tiled kernel's sublane-aligned Element windows over-read by
-    # up to one sublane tile past a block's input extent
-    x_pad = jnp.concatenate(
-        [x.astype(dtype), jnp.zeros((pad_in + 16, x.shape[1]), dtype)], axis=0
-    )
-    y_pad = jnp.zeros((out_len + pad_in, x.shape[1]), dtype)
+    if route == "xla":
+        x_pad = jnp.concatenate(
+            [x.astype(dtype), jnp.zeros((pad_in, k), dtype)], axis=0
+        )
+        y_pad = jnp.zeros((out_len + pad_in, k), dtype)
+    else:
+        k_pad = tp.pad_len(k, tp.K_ALIGN)
+        x_pad = jnp.zeros((x.shape[0] + pad_in + tp.X_OVERREAD, k_pad), dtype)
+        x_pad = x_pad.at[: x.shape[0], :k].set(x.astype(dtype))
+        y_pad = jnp.zeros((tp.pad_len(out_len), k_pad), dtype)
+    kernel = partial(tp.tiled_bucket_apply, interpret=route == "interpret")
 
     # input offset base: x is indexed in the numbering of its own root
     # (local t-offsets are shifted by t_root_off)
@@ -235,76 +215,26 @@ def matvec(h: HMatrix, x, op: str = "N"):
             in_w = bm if in_side == "t" else bn
             out_w = bm if out_side == "t" else bn
 
-            # fused Pallas paths (TPU, real dtypes): no gather/scatter HLOs —
-            # the scatter-add dominates the XLA path on TPU.  The pre-planned
-            # TILED kernel (ops/tiled_matvec.py) is preferred at every scale
-            # (2-3x faster than the resident kernels even at n=10k); the
-            # resident kernels remain for un-prepared matrices that fit VMEM.
-            if dtype == jnp.complex64:
-                # complex fast path: re/im plane plans with [Re(x)|Im(x)]
-                # RHS stacking — each plane read once, ideal 2x-of-real
-                plan = bucket.plan_t if out_side == "t" else bucket.plan_s
-                if isinstance(plan, ComplexPlans) and plan.out_plan.out_len == y_pad.shape[0] and complex_plans_ok(
-                    plan, x_pad.shape[1], jnp.float32
-                ):
-                    sigma = -1.0 if mode in ("C", "conj") else 1.0
-                    yb = apply_complex_plans(
-                        plan, x_pad, sigma, x_pad.shape[1], jnp.float32
-                    )
-                    y_pad = y_pad + yb.astype(dtype)
-                    continue
-            if not jnp.issubdtype(dtype, jnp.complexfloating):
-                plan = bucket.plan_t if out_side == "t" else bucket.plan_s
-                if isinstance(plan, tuple):
-                    planA, planB = plan
-                    if (
-                        planB.out_len == y_pad.shape[0]
-                        and tiled_matvec_ok(dtype, x_pad.shape[1], planA)
-                        and tiled_matvec_ok(dtype, x_pad.shape[1], planB)
-                    ):
-                        t_mid = tiled_bucket_matvec(planA, x_pad, dtype)
-                        y_pad = y_pad + tiled_bucket_matvec(planB, t_mid, dtype)
-                        continue
-                elif (
-                    plan is not None
-                    and plan.out_len == y_pad.shape[0]
-                    and tiled_matvec_ok(dtype, x_pad.shape[1], plan)
-                ):
-                    y_pad = y_pad + tiled_bucket_matvec(plan, x_pad, dtype)
-                    continue
-                lanes = lambda d: -(-d // 128) * 128
-                item = jnp.dtype(dtype).itemsize
+            if route != "xla":
+                # real dtype: 'C' is 'T' and 'conj' is 'N'
+                trans = mode in ("T", "C")
+                y_rows = y_pad.shape[0]
                 if is_dense:
-                    blk_bytes = bm * lanes(bn) * item
-                else:
-                    r = bucket.rank_padded
-                    blk_bytes = (bm * lanes(r) + r * lanes(bn)) * item
-                if pallas_matvec_ok(
-                    dtype, y_pad.shape[0], x_pad.shape[0], x_pad.shape[1],
-                    blk_bytes, in_w, out_w
-                ):
-                    trans = mode in ("T", "C")  # 'C'=='T', 'conj'=='N' (real)
-                    if is_dense:
-                        yb = dense_bucket_matvec(
-                            bucket.data.astype(dtype),
-                            in_off,
-                            out_off,
-                            x_pad,
-                            trans,
-                            y_pad.shape[0],
-                        )
-                    else:
-                        yb = lr_bucket_matvec(
-                            bucket.U.astype(dtype),
-                            bucket.V.astype(dtype),
-                            in_off,
-                            out_off,
-                            x_pad,
-                            trans,
-                            y_pad.shape[0],
-                        )
-                    y_pad = y_pad + yb
+                    y_pad = y_pad + kernel(bucket.data.astype(dtype), x_pad,
+                                           in_off, out_off, out_rows=y_rows,
+                                           trans=trans)
                     continue
+                # t = op(first)·x per block into a compact [nb·r, k] vector,
+                # then y += op(second)·t
+                first, second = (bucket.U, bucket.V) if trans else (bucket.V, bucket.U)
+                r = bucket.rank_padded
+                mid_off = jnp.arange(bucket.n_blocks, dtype=jnp.int32) * r
+                t_rows = tp.pad_len(bucket.n_blocks * r + tp.X_OVERREAD)
+                t = kernel(first.astype(dtype), x_pad, in_off, mid_off,
+                           out_rows=t_rows, trans=trans)
+                y_pad = y_pad + kernel(second.astype(dtype), t, mid_off, out_off,
+                                       out_rows=y_rows, trans=trans)
+                continue
 
             xg = _gather(x_pad, in_off, in_w)
             if is_dense:
@@ -315,7 +245,7 @@ def matvec(h: HMatrix, x, op: str = "N"):
                 )
             y_pad = _scatter_add(y_pad, out_off, out_w, yb)
 
-    y = y_pad[:out_len]
+    y = y_pad[:out_len, :k]
     return y[:, 0] if squeeze else y
 
 
@@ -329,9 +259,7 @@ def matvec_user(h: HMatrix, x, op: str = "N"):
     """Product in USER numbering (global): permute in, product, permute out
     (``add_hmatrix_vector_product.hpp:172-206``).  Only valid for global
     (non-partition-restricted) H-matrices."""
-    from ..utils.cxfer import czeros, to_device
-
-    x = to_device(x)
+    x = jnp.asarray(x)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -344,7 +272,7 @@ def matvec_user(h: HMatrix, x, op: str = "N"):
     out_perm = h.perm_t if op == "N" else h.perm_s
     xc = x[in_perm]
     yc = matvec(h, xc, op=op)
-    y = czeros(yc.shape, yc.dtype).at[out_perm].set(yc)
+    y = jnp.zeros_like(yc).at[out_perm].set(yc)
     return y[:, 0] if squeeze else y
 
 

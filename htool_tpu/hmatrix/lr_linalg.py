@@ -1,7 +1,7 @@
 """Mixed-operand products between dense matrices, low-rank pairs and
 H-matrices.
 
-TPU-native counterpart of the reference's mixed linalg headers
+Batched counterpart of the reference's mixed linalg headers
 (``hmatrix/linalg/add_matrix_hmatrix_product.hpp``,
 ``add_lrmat_hmatrix_product.hpp``, ``add_hmatrix_lrmat_product.hpp``,
 ``add_lrmat_hmatrix.hpp`` and the LR algebra in ``hmatrix/lrmat/linalg/*``:
@@ -11,7 +11,7 @@ TPU-native counterpart of the reference's mixed linalg headers
 
 Design: a low-rank operand is a plain ``LowRank(U, V)`` pair of jnp arrays
 (the single-block analog of the stacked ``LowRankBucket``).  Every product
-reduces to einsums on the factors — the MXU sees only dense matmuls — and
+reduces to einsums on the factors — the device sees only dense matmuls — and
 H-matrix operands re-use the batched bucket products in ``linalg.py`` (a
 left operand is handled through the transpose products, never by
 materializing the H-matrix).  Truncated LR+LR addition concatenates the

@@ -104,88 +104,12 @@ def view_block_tree(h: HMatrix, filename: str | None = None) -> str:
     return dot
 
 
-def _pack_plan(payload: dict, prefix: str, plan) -> None:
-    """Serialize one TilePlan (leaves + aux) under ``prefix``."""
-    from ..ops.tiled_matvec import _flatten_plan
-
-    leaves, aux = _flatten_plan(plan)
-    kind, T, E, G, n_steps, n_tiles, out_len, in_w, out_w, trans = aux
-    payload[f"{prefix}_aux"] = np.array(
-        [T, E, G, n_steps, n_tiles, out_len, in_w, out_w, int(trans),
-         0 if kind == "dense" else 1], np.int64
-    )
-    names = ("data", "U", "V", "in_off", "out_rel", "tile_of", "first_of")
-    present = []
-    for name, leaf in zip(names, leaves):
-        if leaf is not None:
-            payload[f"{prefix}_{name}"] = np.asarray(leaf)
-            present.append(name)
-    payload[f"{prefix}_leaves"] = np.array(present)
-
-
-def _unpack_plan(z, prefix: str):
-    import jax.numpy as jnp
-
-    from ..ops.tiled_matvec import TilePlan
-
-    aux = z[f"{prefix}_aux"]
-    kw = {name: jnp.asarray(z[f"{prefix}_{name}"])
-          for name in z[f"{prefix}_leaves"]}
-    return TilePlan(
-        kind="dense" if int(aux[9]) == 0 else "lr",
-        T=int(aux[0]), E=int(aux[1]), G=int(aux[2]), n_steps=int(aux[3]),
-        n_tiles=int(aux[4]), out_len=int(aux[5]), in_w=int(aux[6]),
-        out_w=int(aux[7]), trans=bool(aux[8]), **kw,
-    )
-
-
-def _pack_bucket_plans(payload: dict, prefix: str, bucket) -> None:
-    """Persist the bucket's attached tiled plans (plan_t / plan_s; each a
-    TilePlan or a (stageA, stageB) split pair) so a reloaded matrix skips
-    plan preparation entirely (BENCH tiled_prepare_s -> 0 on reload)."""
-    from ..ops.tiled_matvec import ComplexPlans
-
-    for side in ("t", "s"):
-        plan = getattr(bucket, f"plan_{side}", None)
-        if plan is None:
-            payload[f"{prefix}_plan_{side}_n"] = np.array([0])
-        elif isinstance(plan, ComplexPlans):
-            # encode as negative count; kind recovered from plan count
-            payload[f"{prefix}_plan_{side}_n"] = np.array([-len(plan.plans)])
-            for i, p in enumerate(plan.plans):
-                _pack_plan(payload, f"{prefix}_plan_{side}{i}", p)
-        elif isinstance(plan, tuple):
-            payload[f"{prefix}_plan_{side}_n"] = np.array([len(plan)])
-            for i, p in enumerate(plan):
-                _pack_plan(payload, f"{prefix}_plan_{side}{i}", p)
-        else:
-            payload[f"{prefix}_plan_{side}_n"] = np.array([1])
-            _pack_plan(payload, f"{prefix}_plan_{side}0", plan)
-
-
-def _unpack_bucket_plans(z, prefix: str, bucket) -> None:
-    from ..ops.tiled_matvec import ComplexPlans
-
-    for side in ("t", "s"):
-        key = f"{prefix}_plan_{side}_n"
-        n = int(z[key][0]) if key in z else 0
-        if n == 0:
-            continue
-        plans = tuple(
-            _unpack_plan(z, f"{prefix}_plan_{side}{i}") for i in range(abs(n))
-        )
-        if n < 0:
-            plan = ComplexPlans("cdense" if n == -2 else "clr", plans)
-        else:
-            plan = plans if n > 1 else plans[0]
-        setattr(bucket, f"plan_{side}", plan)
-
-
-def save_hmatrix(h: HMatrix, filename: str, include_plans: bool = True) -> None:
-    """Persist the full compressed H-matrix (npz), including any attached
-    tiled-product plans.  The reference does not serialize H-matrices
-    (SURVEY.md §5 checkpoint/resume); this closes that gap for
-    checkpoint/restore of assembled operators."""
+def save_hmatrix(h: HMatrix, filename: str) -> None:
+    """Persist the full compressed H-matrix (npz).  The reference does not
+    serialize H-matrices (SURVEY.md §5 checkpoint/resume); this closes that
+    gap for checkpoint/restore of assembled operators.  Files written with
+    the older per-bucket product plans still load: the extra arrays are
+    ignored."""
     payload = dict(
         shape=np.array(h.shape),
         symmetry=np.array([h.symmetry]),
@@ -196,53 +120,44 @@ def save_hmatrix(h: HMatrix, filename: str, include_plans: bool = True) -> None:
         n_dense=np.array([len(h.dense_buckets)]),
         n_lr=np.array([len(h.lr_buckets)]),
     )
-    from ..utils.cxfer import to_host
-
     for k, b in enumerate(h.dense_buckets):
-        payload[f"d{k}_data"] = to_host(b.data)
+        payload[f"d{k}_data"] = np.asarray(b.data)
         payload[f"d{k}_t_off"] = np.asarray(b.t_off)
         payload[f"d{k}_s_off"] = np.asarray(b.s_off)
         payload[f"d{k}_t_sizes"] = np.asarray(b.t_sizes)
         payload[f"d{k}_s_sizes"] = np.asarray(b.s_sizes)
         payload[f"d{k}_mirror"] = np.array([int(b.mirror)])
-        if include_plans:
-            _pack_bucket_plans(payload, f"d{k}", b)
     for k, b in enumerate(h.lr_buckets):
-        payload[f"l{k}_U"] = to_host(b.U)
-        payload[f"l{k}_V"] = to_host(b.V)
+        payload[f"l{k}_U"] = np.asarray(b.U)
+        payload[f"l{k}_V"] = np.asarray(b.V)
         payload[f"l{k}_t_off"] = np.asarray(b.t_off)
         payload[f"l{k}_s_off"] = np.asarray(b.s_off)
         payload[f"l{k}_t_sizes"] = np.asarray(b.t_sizes)
         payload[f"l{k}_s_sizes"] = np.asarray(b.s_sizes)
         payload[f"l{k}_ranks"] = np.asarray(b.ranks)
         payload[f"l{k}_mirror"] = np.array([int(b.mirror)])
-        if include_plans:
-            _pack_bucket_plans(payload, f"l{k}", b)
     np.savez_compressed(filename, **payload)
 
 
 def load_hmatrix(filename: str) -> HMatrix:
     import jax.numpy as jnp
 
-    from ..utils.cxfer import to_device
-
     z = np.load(filename, allow_pickle=False)
     dense, lr = [], []
     for k in range(int(z["n_dense"][0])):
         b = DenseBucket(
-            data=to_device(z[f"d{k}_data"]),
+            data=jnp.asarray(z[f"d{k}_data"]),
             t_off=jnp.asarray(z[f"d{k}_t_off"]),
             s_off=jnp.asarray(z[f"d{k}_s_off"]),
             t_sizes=z[f"d{k}_t_sizes"],
             s_sizes=z[f"d{k}_s_sizes"],
             mirror=bool(z[f"d{k}_mirror"][0]),
         )
-        _unpack_bucket_plans(z, f"d{k}", b)
         dense.append(b)
     for k in range(int(z["n_lr"][0])):
         b = LowRankBucket(
-            U=to_device(z[f"l{k}_U"]),
-            V=to_device(z[f"l{k}_V"]),
+            U=jnp.asarray(z[f"l{k}_U"]),
+            V=jnp.asarray(z[f"l{k}_V"]),
             t_off=jnp.asarray(z[f"l{k}_t_off"]),
             s_off=jnp.asarray(z[f"l{k}_s_off"]),
             t_sizes=z[f"l{k}_t_sizes"],
@@ -250,7 +165,6 @@ def load_hmatrix(filename: str) -> HMatrix:
             ranks=z[f"l{k}_ranks"],
             mirror=bool(z[f"l{k}_mirror"][0]),
         )
-        _unpack_bucket_plans(z, f"l{k}", b)
         lr.append(b)
     return HMatrix(
         shape=tuple(int(x) for x in z["shape"]),

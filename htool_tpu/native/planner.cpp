@@ -3,7 +3,7 @@
 // C++ equivalent of the reference's header-only tree builders
 // (include/htool/clustering/tree_builder/tree_builder.hpp and
 // include/htool/hmatrix/tree_builder/tree_builder.hpp:417-531), re-designed
-// for the TPU framework's flat-array interface: the planner runs once on
+// for the framework's flat-array interface: the planner runs once on
 // host and hands back plain int/double arrays that the Python layer lowers
 // into padded device buckets.  Exposed through a C ABI for ctypes.
 //

@@ -1,6 +1,6 @@
 """Distributed operator — row-partitioned H-matrix over a device mesh.
 
-TPU-native replacement for the reference's MPI distributed operator
+Mesh-native replacement for the reference's MPI distributed operator
 (``distributed_operator/distributed_operator.hpp:19-61`` and
 ``distributed_operator/linalg/*``): each mesh device owns the block-row of
 the H-matrix for its target-cluster partition (the reference builds rank-
@@ -117,9 +117,7 @@ class DistributedHMatrix:
         """Global-to-global product in USER numbering: all ranks hold the
         global vector (``add_distributed_operator_vector_product_global_to_
         global.hpp:96-118``)."""
-        from ..utils.cxfer import to_device
-
-        x = to_device(x)
+        x = jnp.asarray(x)
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]

@@ -1,15 +1,15 @@
-"""Multi-host execution — the MPI-multi-node analog (SURVEY.md §5).
+"""Multi-process execution — the MPI-multi-node analog (SURVEY.md §5).
 
-The reference scales across nodes with plain MPI ranks; the TPU-native
-equivalent is one JAX process per host with a GLOBAL mesh over the pod
-slice: ``jax.distributed.initialize`` wires the processes together, every
-collective in the package (psum / all_gather / ppermute under shard_map)
-then rides ICI within a slice and DCN across slices with no code changes —
-shard_map programs are written against the global mesh regardless of how
-many processes back it.
+The reference scales across nodes with plain MPI ranks; here the same role
+is played by one JAX process per host (or per GPU) with a GLOBAL mesh over
+all of their devices: ``jax.distributed.initialize`` wires the processes
+together, and every collective in the package (psum / all_gather /
+ppermute under shard_map) then runs over NCCL between GPUs with no code
+changes — shard_map programs are written against the global mesh regardless
+of how many processes back it.
 
 This module provides the process-setup helpers; the operators and solvers
-are already mesh-global.  On a single host (or under the CPU-emulated
+are already mesh-global.  In a single process (or under the CPU-emulated
 mesh) everything degrades to the local device list.
 """
 
@@ -31,29 +31,30 @@ def initialize_multihost(
 ) -> None:
     """Wire up multi-process JAX (the MPI_Init analog).
 
-    With no arguments, relies on the TPU pod environment auto-detection
-    (``jax.distributed.initialize()``); explicit arguments support
-    CPU/GPU clusters.  Safe to call when already initialized or when
-    running single-process (no coordinator configured): those cases are
-    no-ops.
+    Give the coordinator explicitly (``"host:port"``, the process count and
+    this process's id), or set ``JAX_COORDINATOR_ADDRESS`` (with
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``) and call with no
+    arguments.  A GPU host tells JAX nothing of a cluster by itself, so
+    with neither this is single-process and a no-op, as it is when already
+    initialized.
 
     Must run before any backend use: probing ``jax.process_count()`` (or
     touching any array) initializes the local backend and silently breaks
     ``jax.distributed.initialize`` — hence the client check below."""
     if jax.distributed.is_initialized():
         return  # already initialized
+    if coordinator_address is None:
+        coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")
+        if coordinator_address is None:
+            return  # single-process — nothing to do
+        num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+        process_id = int(os.environ["JAX_PROCESS_ID"])
     try:
-        if coordinator_address is not None:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id,
-            )
-        elif os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get(
-            "TPU_WORKER_HOSTNAMES"
-        ):
-            jax.distributed.initialize()
-        # else: single-process — nothing to do
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+        )
     except RuntimeError:
         # double-initialize or non-distributed environment
         pass

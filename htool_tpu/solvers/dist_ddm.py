@@ -1,6 +1,6 @@
 """Genuinely distributed DDM solve — the whole Krylov iteration sharded.
 
-TPU-native equivalent of the reference's HPDDM-driven solve on local slices
+Mesh-native equivalent of the reference's HPDDM-driven solve on local slices
 (``solvers/ddm.hpp:183-214`` + ``wrappers/wrapper_hpddm.hpp:102-149``): the
 reference gives HPDDM only the rank's rhs slice, performs the GMV through
 the distributed l2l product plus a point-to-point neighbor ``exchange`` over
@@ -16,7 +16,7 @@ Here ONE ``shard_map`` wraps the entire solve:
 - the halo exchange over precomputed subdomain-intersection index sets runs
   as a static sequence of ``ppermute`` rounds (one per color of the
   edge-colored neighbor graph) — the ``exchange``/``scaledexchange`` of
-  wrapper_hpddm.hpp:140-149 mapped to ICI collectives (SURVEY.md §5);
+  wrapper_hpddm.hpp:140-149 mapped to device collectives (SURVEY.md §5);
 - Schwarz subdomain solves execute device-locally inside the shard_map:
   the dense mode is the prefactorized local LU
   (``solvers/local_solvers/local_dense_solvers.hpp``), the BLR mode stacks
@@ -541,9 +541,7 @@ class DistributedDDMSolver:
         d = self.dop
         mesh, ax = d.mesh, d.axis_name
         halo = self.halo
-        from ..utils.cxfer import to_device
-
-        b = to_device(b)
+        b = jnp.asarray(b)
         squeeze = b.ndim == 1
         if squeeze:
             b = b[:, None]

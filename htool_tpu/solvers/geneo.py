@@ -32,7 +32,6 @@ import numpy as np
 
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator
-from ..utils.cxfer import ceye, czeros, to_device, to_host
 from ..utils.precision import precise_jit
 
 __all__ = ["GeneoCoarseSpace", "build_geneo_coarse_space"]
@@ -77,7 +76,7 @@ class GeneoCoarseSpace:
         cp = c.reshape(P, self.nu_max, k)
         zs = jnp.einsum("psn,pnk->psk", self.Z_loc, cp)  # [P, sz_max, k]
         N = int(self.row_size.sum())
-        out = czeros((N, k), zs.dtype)
+        out = jnp.zeros((N, k), zs.dtype)
         ar = np.arange(sz_max)[None, :]
         rows = np.minimum(self.row_off[:, None] + ar, N - 1)
         mask = jnp.asarray(ar < self.row_size[:, None])
@@ -260,12 +259,12 @@ def build_geneo_coarse_space(
                 for ci, p in enumerate(ps):
                     Bp = np.asarray(local_B[p])
                     Bi[ci, : Bp.shape[0], : Bp.shape[1]] = Bp
-                Bi = to_device(Bi)
+                Bi = jnp.asarray(Bi)
                 Bi = jnp.where(pair, Bi, 0)
             else:
                 Bi = Ai
             # identity on padding keeps Bᵢ positive definite
-            eye = ceye(n_max, Ai.dtype)[None]
+            eye = jnp.eye(n_max, dtype=Ai.dtype)[None]
             Bi = Bi + jnp.where(vm[:, :, None], 0, eye)
             # DAiD: interior block only (coarse_space_builder.hpp:28-37)
             int_mask = jnp.asarray(
@@ -275,7 +274,7 @@ def build_geneo_coarse_space(
             DAiD = jnp.where(dpair, Ai, 0)
             w_all, v_all = _k_geneo_eigh(DAiD, Bi)
             w_all = np.asarray(w_all)  # [c, n_max] ascending (real)
-            v_all = to_host(v_all)
+            v_all = np.asarray(v_all)
             for ci, p in enumerate(ps_real):
                 select(p, w_all[ci], v_all[ci], sub_idx[p].size, int(sizes[p]))
     else:
@@ -303,12 +302,12 @@ def build_geneo_coarse_space(
         Z_loc_np = np.zeros((P, sz_max, nu_max), dtype)
         for p in range(P):
             Z_loc_np[p, : vecs[p].shape[0], : nus[p]] = vecs[p]
-        Z_loc = to_device(Z_loc_np)
+        Z_loc = jnp.asarray(Z_loc_np)
         nc_pad = P * nu_max
         nc = int(sum(nus))
 
         t1 = time.perf_counter()
-        E = czeros((nc_pad, nc_pad), dtype)
+        E = jnp.zeros((nc_pad, nc_pad), dtype)
         cs = GeneoCoarseSpace(
             Z=None, E_lu=None, E_piv=None, size=nc,
             nu_per_subdomain=np.array(nus), eigenvalues=eigs,
@@ -318,7 +317,7 @@ def build_geneo_coarse_space(
         # E = Z* A Z per partition-chunk: the [N, c*nu_max] transient is the
         # only N-sized buffer (coarse_operator_builder.hpp:80-128 pattern)
         qchunk = max(1, min(64, P))
-        eyec = ceye(nc_pad, dtype)
+        eyec = jnp.eye(nc_pad, dtype=dtype)
         for lo in range(0, P, qchunk):
             qs = np.arange(lo, min(lo + qchunk, P))
             sel_cols = (
@@ -346,7 +345,7 @@ def build_geneo_coarse_space(
                 col = np.zeros(N, dtype)
                 col[int(offs[p]) : int(offs[p]) + sz] = vecs[p][:, j]
                 Z_cols.append(col)
-        Z = to_device(np.stack(Z_cols, axis=1)) if Z_cols else czeros((N, 0), dtype)
+        Z = jnp.asarray(np.stack(Z_cols, axis=1)) if Z_cols else jnp.zeros((N, 0), dtype)
         nc = Z.shape[1]
 
         # E = Z* A Z via global products (coarse_operator_builder.hpp:80-128)

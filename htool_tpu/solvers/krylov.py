@@ -1,6 +1,6 @@
 """Krylov solvers — jittable CG and restarted GMRES with preconditioning.
 
-TPU-native replacement for the HPDDM Krylov loop the reference delegates to
+Jittable replacement for the HPDDM Krylov loop the reference delegates to
 (``solvers/ddm.hpp:193`` -> ``HPDDM::IterativeMethod::solve``): pure-JAX
 ``lax.while_loop`` iterations so the whole solve (operator apply +
 preconditioner + dot products) compiles to one XLA program; on a mesh the

@@ -1,19 +1,19 @@
 """Full-precision matmul policy for the compute path.
 
-TPU MXUs execute f32 ``dot_general`` at bf16 input precision by default
-(~3 decimal digits), which breaks the library's accuracy contract — the
-reference computes in full f64 BLAS (``wrappers/wrapper_blas.hpp:24-42``)
-and its acceptance tests require relative Frobenius error < ε
-(``tests/functional_tests/hmatrix/test_hmatrix_build.hpp:191``).  Measured
-here: a two-level LU whose backward error is 1e-7 in f32 on CPU lands at
-1.7e-3 on the chip under default precision.
+A float32 ``dot_general`` on a Hopper GPU may run in TF32 (about three
+decimal digits) unless a precision is requested, which breaks the library's
+accuracy contract — the reference computes in full f64 BLAS
+(``wrappers/wrapper_blas.hpp:24-42``) and its acceptance tests require
+relative Frobenius error < ε
+(``tests/functional_tests/hmatrix/test_hmatrix_build.hpp:191``).  The
+package sets ``jax_default_matmul_precision="highest"`` at import
+(``htool_tpu/__init__.py``); ``chip_smoke.py``'s precision phase checks on
+the card that the product's arithmetic stays at float32 accuracy.
 
 ``precise_jit`` is a drop-in for :func:`jax.jit` that traces its function
-under ``jax.default_matmul_precision('highest')`` (full f32 accumulation
-via multi-pass bf16 on the MXU).  The Pallas kernels set
-``Precision.HIGHEST`` explicitly (``ops/tiled_matvec.py:273``); this
-covers the XLA paths.  ``full_precision()`` is the bare context manager
-for eager (non-jitted) compute sections.
+under ``jax.default_matmul_precision('highest')``, so the policy holds even
+where a caller opted out of the global default.  ``full_precision()`` is
+the bare context manager for eager (non-jitted) compute sections.
 """
 
 from __future__ import annotations

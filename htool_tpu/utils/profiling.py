@@ -4,7 +4,7 @@ The reference records wall-clock phase timings in info maps
 (``tree_builder.hpp:308-316``, ``ddm.hpp:66-122``); this package does the
 same (``HMatrix.info``, ``BLRMatrix.info``, solver ``infos``) and adds what
 the reference cannot have: an xprof/perfetto DEVICE trace hook via
-``jax.profiler`` for kernel-level analysis on TPU.
+``jax.profiler`` for kernel-level analysis on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def device_trace(log_dir: str, host_profile: bool = False):
             y.block_until_ready()
 
     View with xprof/TensorBoard or convert to perfetto.  This wraps
-    ``jax.profiler.trace`` so all XLA kernels, Pallas kernels, and
+    ``jax.profiler.trace`` so all device kernels and
     collectives inside the block are recorded."""
     with jax.profiler.trace(log_dir, create_perfetto_trace=host_profile):
         yield

@@ -2,7 +2,6 @@
 save/read), H-matrix structure dump, H-matrix npz round trip."""
 
 import numpy as np
-import pytest
 
 import htool_tpu as ht
 from htool_tpu.clustering.io import (
@@ -92,30 +91,22 @@ def test_save_levels_and_dot(tmp_path):
     assert dot.startswith("digraph") and "palegreen" in dot and "lightcoral" in dot
 
 
-@pytest.mark.slow
-def test_save_load_with_tile_plans(tmp_path):
-    """Tiled-product plans ride through save/load so a reloaded matrix
-    skips plan preparation (BENCH tiled_prepare amortized to zero)."""
-    import numpy as np
+def test_save_load_matvec_equal(tmp_path):
+    """A reloaded operator gives the same product, bit for bit, in both
+    orientations: every bucket array survives the npz round trip."""
+    from htool_tpu.hmatrix.linalg import matvec
 
-    import htool_tpu as ht
-    from htool_tpu.hmatrix.linalg import matvec, prepare_tiled_matvec
-    from htool_tpu.hmatrix.output import load_hmatrix, save_hmatrix
-    from htool_tpu.testing import create_sphere, laplace_kernel_symmetric
-
-    pts = create_sphere(1500)
+    pts = create_sphere(600)
     gen = ht.KernelGenerator(laplace_kernel_symmetric, pts, pts)
-    tree = ht.build_cluster_tree(pts, max_leaf_size=64)
+    tree = ht.build_cluster_tree(pts, max_leaf_size=40)
     H = ht.build_hmatrix(gen, tree, epsilon=1e-6, eta=10.0)
-    prepare_tiled_matvec(H)
-    x = np.random.RandomState(0).randn(1500, 2)
-    y0 = np.asarray(matvec(H, x))
-
-    f = str(tmp_path / "h_with_plans.npz")
-    save_hmatrix(H, f)
-    H2 = load_hmatrix(f)
-    for b in H2.dense_buckets + H2.lr_buckets:
-        assert getattr(b, "plan_t", None) is not None
-        assert getattr(b, "plan_s", None) is not None
-    y1 = np.asarray(matvec(H2, x))
-    assert np.allclose(y0, y1)
+    path = str(tmp_path / "h.npz")
+    save_hmatrix(H, path)
+    H2 = load_hmatrix(path)
+    assert [b.block_shape for b in H2.dense_buckets + H2.lr_buckets] == [
+        b.block_shape for b in H.dense_buckets + H.lr_buckets
+    ]
+    x = np.random.RandomState(0).randn(600, 2)
+    for op in ("N", "T"):
+        assert np.array_equal(np.asarray(matvec(H, x, op=op)),
+                              np.asarray(matvec(H2, x, op=op))), op
